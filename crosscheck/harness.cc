@@ -1,6 +1,6 @@
 // Differential harness: drives the REFERENCE implementation's core
 // objects (compiled verbatim from /root/reference/slimt) on
-// pre-tokenized ids, so slimt_tpu's outputs can be diffed against the
+// pre-tokenized ids, so slimt_jax's outputs can be diffed against the
 // actual C++ reference instead of a builder-written oracle.
 //
 // What is genuine reference code in this binary:

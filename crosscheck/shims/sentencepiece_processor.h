@@ -20,7 +20,7 @@
 // validate: with the tokenizer held IDENTICAL by construction on both
 // sides, the differential isolates the reference's TextProcessor/
 // Annotation semantics (wrap-at-128, EOS placement, byte-range
-// bookkeeping) against slimt_tpu's.  Tokenizer-level parity is
+// bookkeeping) against slimt_jax's.  Tokenizer-level parity is
 // separately covered by the 3-backend agreement tests in Python
 // (native C++ / HF tokenizers / pure python).
 #ifndef CROSSCHECK_SHIM_SENTENCEPIECE_PROCESSOR_H

@@ -1,14 +1,14 @@
-// Java embedding example for slimt-tpu.
+// Java embedding example for slimt-jax.
 //
 // The reference project ships JNI bindings (reference
 // bindings/java/slimt.cpp) so Android apps can call the C++ engine
-// in-process. slimt-tpu's engine is a Python/JAX process that owns the
-// TPU, so cross-language embedding goes over the localhost HTTP/JSON
-// surface instead (slimt_tpu/server.py) — same Service semantics
+// in-process. slimt-jax's engine is a Python/JAX process that owns the
+// GPU, so cross-language embedding goes over the localhost HTTP/JSON
+// surface instead (slimt_jax/server.py) — same Service semantics
 // (translate, pivot, HTML passthrough, model registry, health).
 //
 // Run the server:
-//   python -m slimt_tpu.server --root <model-dir> --port 18931
+//   python -m slimt_jax.server --root <model-dir> --port 18931
 // Then:
 //   javac examples/JavaClient.java && java -cp examples JavaClient
 //
@@ -69,7 +69,7 @@ public class JavaClient {
         HttpClient client = HttpClient.newHttpClient();
 
         // Liveness + device health (reference has no equivalent; the
-        // TPU serving tier needs it).
+        // accelerator serving tier needs it).
         HttpResponse<String> health = client.send(
                 HttpRequest.newBuilder(URI.create(BASE + "/health")).build(),
                 HttpResponse.BodyHandlers.ofString());

@@ -1,4 +1,4 @@
-// Embed the slimt_tpu engine in a C++ host via the C ABI — the
+// Embed the slimt_jax engine in a C++ host via the C ABI — the
 // in-process counterpart of examples/JavaClient.java (which uses the
 // HTTP surface). Mirrors what the reference's JNI host does
 // (bindings/java/slimt.cpp): build a Model from artifact paths,
@@ -10,7 +10,7 @@
 //       -lslimt_capi -o /tmp/embed_capi
 //   ./embed_capi <package_dir> [pythonpath]
 // where <package_dir> holds model.bin / vocab.spm / shortlist.bin
-// (e.g. from `python -m slimt_tpu synth --out <package_dir>`).
+// (e.g. from `python -m slimt_jax synth --out <package_dir>`).
 
 #include <cstdio>
 #include <string>

@@ -1,13 +1,13 @@
-// Native HTTP client for the slimt-tpu serving endpoint.
+// Native HTTP client for the slimt-jax serving endpoint.
 //
 // The reference project ships JNI bindings (reference
 // bindings/java/slimt.cpp) so JVM/Android apps can call the engine
-// in-process.  slimt-tpu's engine is a Python/JAX process that owns
-// the TPU, so cross-language embedding has two supported surfaces:
+// in-process.  slimt-jax's engine is a Python/JAX process that owns
+// the GPU, so cross-language embedding has two supported surfaces:
 //   - in-process: the C ABI (native/slimt_capi.h, embedded CPython —
 //     see examples/embed_capi.cc), which a JNI wrapper would link;
 //   - out-of-process: the localhost HTTP/JSON endpoint
-//     (slimt_tpu/server.py) this client exercises.
+//     (slimt_jax/server.py) this client exercises.
 // This file is the compiled-and-tested counterpart of the reference's
 // JNI smoke path (tests/test_http_client.py builds and runs it
 // against a live server; examples/JavaClient.java shows the same

@@ -6,7 +6,7 @@ With a real Bergamot package (from translateLocally / OPUS):
 
 Without one, generate an offline demo package first:
 
-    python -m slimt_tpu synth --out /tmp/demo
+    python -m slimt_jax synth --out /tmp/demo
     python examples/quickstart.py --root /tmp/demo
 """
 
@@ -16,12 +16,8 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from slimt_tpu.cli import _honor_jax_platforms_env
-
-_honor_jax_platforms_env()
-
-from slimt_tpu import Blocking, Config, Model, Package, preset
-from slimt_tpu.runtime.response import Options
+from slimt_jax import Blocking, Config, Model, Package, preset
+from slimt_jax.runtime.response import Options
 
 
 def main():

@@ -1,10 +1,10 @@
-// C embedding ABI for the slimt_tpu engine.
+// C embedding ABI for the slimt_jax engine.
 //
 // The reference exposes native embedding via pybind11
 // (bindings/python/slimt.cpp) and JNI (bindings/java/slimt.cpp).
 // This framework's engine is Python/JAX, so the native embedding
 // surface is a thin C ABI that hosts an embedded CPython interpreter
-// and delegates to slimt_tpu/capi.py. Any C, C++, JNI, or FFI host
+// and delegates to slimt_jax/capi.py. Any C, C++, JNI, or FFI host
 // can link libslimt_capi.so and drive the engine in-process — the
 // same role the reference's JNI layer plays for Android.
 //
@@ -26,7 +26,7 @@
 namespace {
 
 thread_local std::string g_last_error;
-PyObject* g_capi_module = nullptr;  // slimt_tpu.capi, owned
+PyObject* g_capi_module = nullptr;  // slimt_jax.capi, owned
 
 void set_error(const std::string& message) { g_last_error = message; }
 
@@ -143,7 +143,7 @@ SLIMT_API const char* slimt_last_error(void) { return g_last_error.c_str(); }
 // Initialize the embedded interpreter (idempotent; safe when the host
 // process already runs Python — e.g. loaded via ctypes in tests).
 // extra_pythonpath may be nullptr; when set it is prepended to
-// sys.path before importing slimt_tpu (the SLIMT_TPU_PYTHONPATH env
+// sys.path before importing slimt_jax (the SLIMT_JAX_PYTHONPATH env
 // var works too).
 SLIMT_API int slimt_init(const char* extra_pythonpath) {
   // Promote the already-mapped libpython to RTLD_GLOBAL. When this
@@ -166,8 +166,7 @@ SLIMT_API int slimt_init(const char* extra_pythonpath) {
     }
   }
   if (!Py_IsInitialized()) {
-    // `import site` runs (platform hooks included); capi.init()
-    // re-asserts JAX_PLATFORMS afterwards.
+    // capi.init() below does the Python-side process set-up.
     Py_InitializeEx(0);
     // Drop the GIL acquired by initialization so host threads (and
     // this one, via GilGuard) can take it uniformly.
@@ -178,7 +177,7 @@ SLIMT_API int slimt_init(const char* extra_pythonpath) {
 
   // Insert-at-0 in {env, extra} order so the explicit API argument
   // ends up FIRST on sys.path (wins over the env var).
-  const char* env_path = std::getenv("SLIMT_TPU_PYTHONPATH");
+  const char* env_path = std::getenv("SLIMT_JAX_PYTHONPATH");
   for (const char* path : {env_path, extra_pythonpath}) {
     if (path == nullptr || path[0] == '\0') continue;
     PyObject* sys_path = PySys_GetObject("path");  // borrowed
@@ -189,9 +188,9 @@ SLIMT_API int slimt_init(const char* extra_pythonpath) {
     Py_XDECREF(entry);
   }
 
-  PyObject* module = PyImport_ImportModule("slimt_tpu.capi");
+  PyObject* module = PyImport_ImportModule("slimt_jax.capi");
   if (module == nullptr) {
-    capture_py_error("import slimt_tpu.capi");
+    capture_py_error("import slimt_jax.capi");
     return -1;
   }
   PyObject* result =
@@ -217,7 +216,7 @@ SLIMT_API long long slimt_service_create(int workers, int cache_size) {
   return handle;
 }
 
-// spec_json: see slimt_tpu/capi.py model_create docstring (preset or
+// spec_json: see slimt_jax/capi.py model_create docstring (preset or
 // config fields + artifact paths — the reference JNI ncreate inputs).
 SLIMT_API long long slimt_model_create(const char* spec_json) {
   GilGuard gil;

@@ -1,6 +1,6 @@
-/* C embedding ABI for the slimt_tpu translation engine.
+/* C embedding ABI for the slimt_jax translation engine.
  *
- * Link against libslimt_capi.so (which embeds CPython and the JAX/TPU
+ * Link against libslimt_capi.so (which embeds CPython and the JAX
  * engine) to drive translation in-process from C, C++, JNI, or any
  * FFI — the counterpart of the reference's pybind11/JNI bindings
  * (bindings/python/slimt.cpp, bindings/java/slimt.cpp).
@@ -28,8 +28,8 @@ extern "C" {
 
 /* Initialize the embedded interpreter and engine. Idempotent; safe in
  * processes that already host Python. extra_pythonpath (optional,
- * may be NULL) is prepended to sys.path so slimt_tpu can be found
- * when it is not installed site-wide; SLIMT_TPU_PYTHONPATH env works
+ * may be NULL) is prepended to sys.path so slimt_jax can be found
+ * when it is not installed site-wide; SLIMT_JAX_PYTHONPATH env works
  * too. Returns 0 on success. */
 int slimt_init(const char* extra_pythonpath);
 

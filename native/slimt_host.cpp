@@ -1,4 +1,4 @@
-// slimt_host — native host-side hot paths for the TPU engine.
+// slimt_host — native host-side hot paths for the JAX engine.
 //
 // The reference implements its entire host runtime in C++ (tokenizer
 // via sentencepiece, hashing in Utils.hh:47-67, request/batcher in
@@ -12,7 +12,7 @@
 //   - the boost-style hash fold used for cache keys and shortlist
 //     checksums
 //
-// Exact behavioral parity with slimt_tpu.text.vocabulary's pure
+// Exact behavioral parity with slimt_jax.text.vocabulary's pure
 // Python backend is enforced by tests/test_native.py.
 
 #include <algorithm>

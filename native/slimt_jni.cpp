@@ -1,4 +1,4 @@
-// JNI binding for the slimt_tpu engine — the counterpart of the
+// JNI binding for the slimt_jax engine — the counterpart of the
 // reference's bindings/java/slimt.cpp (same Java-visible surface:
 // io.github.jerinphilip.slimt.{Model,Service} natives), implemented
 // over this framework's C embedding ABI (slimt_capi.h) instead of
@@ -105,7 +105,7 @@ jlong get_long_field(JNIEnv* env, jobject obj, jclass cls, const char* name,
 }
 
 // Engine init is lazy (first ncreate) and idempotent; the JVM host
-// may set SLIMT_TPU_PYTHONPATH when slimt_tpu isn't installed
+// may set SLIMT_JAX_PYTHONPATH when slimt_jax isn't installed
 // site-wide — same contract as slimt_init(NULL).
 bool ensure_engine(JNIEnv* env) {
   if (slimt_init(nullptr) == 0) return true;

@@ -9,11 +9,11 @@ g++ -O1 -g -std=c++17 -fPIC -fsanitize=address,undefined -shared \
 cat > "$BUILD/check.py" <<'EOF'
 import sys, os
 sys.path.insert(0, os.environ["SLIMT_ROOT"])
-import slimt_tpu.native as native
+import slimt_jax.native as native
 native._LIB_PATH = os.environ["ASAN_LIB"]
 native._lib = None; native._build_failed = False
 assert native.available()
-from slimt_tpu.text.synthetic_vocab import build_vocabulary
+from slimt_jax.text.synthetic_vocab import build_vocabulary
 py = build_vocabulary(["hello", "world", "test", "héllo"], backend="none")
 nat = build_vocabulary(["hello", "world", "test", "héllo"], backend="native")
 lines = ["hello world", "  spaces   collapse  ", "héllo zzz", "",
@@ -77,9 +77,9 @@ if S:
 
 # charsmap traversal
 from tests.darts import build_charsmap
-from slimt_tpu.text import spm_proto
-from slimt_tpu.text.synthetic_vocab import build_spm_model
-from slimt_tpu.text.vocabulary import Vocabulary
+from slimt_jax.text import spm_proto
+from slimt_jax.text.synthetic_vocab import build_spm_model
+from slimt_jax.text.vocabulary import Vocabulary
 spm = build_spm_model(["hello", "world"])
 spm.normalizer.precompiled_charsmap = build_charsmap(
     {"½".encode(): "1/2", b"q": ""}

@@ -1,6 +1,6 @@
 """Reference-binary differential harness driver.
 
-Diffs slimt_tpu's decode output against the ACTUAL reference C++
+Diffs slimt_jax's decode output against the ACTUAL reference C++
 implementation (compiled verbatim from /root/reference/slimt into
 crosscheck/bin/slimt_ref_harness — see crosscheck/Makefile for what is
 genuine reference code vs. thin third-party shims).  This converts the
@@ -17,7 +17,7 @@ oracle into cross-implementation evidence:
 Measured agreement (see tests/test_crosscheck.py): full-vocab greedy
 decode is 100% token-exact across every architecture cell and batch
 size, despite the candidate deltas (reference ruy quantizes
-activations with roundf vs slimt_tpu's rint; system-BLAS vs XLA:CPU
+activations with roundf vs slimt_jax's rint; system-BLAS vs XLA:CPU
 f32 accumulation order) — none of them flip an argmax on these shapes.
 
 Shortlisted decode is exact once the logit bias is zeroed; with a
@@ -25,7 +25,7 @@ nonzero bias the reference's Ruy provider itself diverges from its
 intgemm/gemmology providers: qmm/Ruy.inl.cc:169-176 computes
 `selected_bias` but line 195-199 passes the UNSELECTED `prepared_bias`
 to unquantizeAddBias, adding bias[packed_index] instead of
-bias[shortlist[packed_index]].  slimt_tpu selects the bias like the
+bias[shortlist[packed_index]].  slimt_jax selects the bias like the
 intgemm/gemmology providers (qmm/Gemmology.inl.cc:151-169) — the
 providers real x86 deployments use.  The tokens mode therefore runs
 shortlist cells with a zeroed logit bias (isolating everything else)
@@ -44,7 +44,7 @@ Modes:
                annotation semantics).
   e2e        — the COMPLETE reference slimt-cli (app/main.cc + full
                Frontend/Batcher/Request/Response service layer,
-               compiled verbatim) vs `python -m slimt_tpu translate`:
+               compiled verbatim) vs `python -m slimt_jax translate`:
                text in, translated text out, exact string compare,
                incl. --html markup transfer (tag skeleton exact; tag
                position may move on f32 attention ties).
@@ -70,14 +70,6 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-if os.environ.get("JAX_PLATFORMS"):
-    try:
-        import jax
-
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-    except Exception:
-        pass
-
 HARNESS = os.path.join(ROOT, "crosscheck", "bin", "slimt_ref_harness")
 
 # (label, enc, dec, heads, emb, ffn, seed) — mirrors parity.py matrix
@@ -88,9 +80,8 @@ CELLS = [
     ("narrow 2/2/2", 2, 2, 2, 32, 64, 2),
     ("deep-dec 2/4/4", 2, 4, 4, 64, 128, 4),
 ]
-# The serving sweep adds a REPEATED-NEAR-TIE stress cell (VERDICT r3
-# task 7 outcome): a wide logit-bias spread was built hoping to
-# emulate a trained model's peaked logits, but MEASURED HARDER than
+# The serving sweep adds a REPEATED-NEAR-TIE stress cell: a wide
+# logit-bias spread was built hoping to emulate a trained model's peaked logits, but MEASURED HARDER than
 # the adversarial cells — with the bias dominating, the SAME top-2
 # contest (fixed bias gap ~0.6 at V=512 order statistics) repeats
 # every decode step, re-rolling the f32-accumulation-order dice each
@@ -121,11 +112,11 @@ def write_package(tmp, enc, dec, heads, emb, ffn, seed, bias_scale=None):
 
     `bias_scale` multiplies decoder_ff_logit_out_b (the STRESS cell:
     a bias-dominated repeated top-2 contest — see PEAKED_CELL note)."""
-    from slimt_tpu.config import ModelConfig
-    from slimt_tpu.io.shortlist import build_synthetic_shortlist
-    from slimt_tpu.io.synthetic import synthetic_model_bytes
-    from slimt_tpu.text import spm_proto
-    from slimt_tpu.text.synthetic_vocab import build_spm_model
+    from slimt_jax.config import ModelConfig
+    from slimt_jax.io.shortlist import build_synthetic_shortlist
+    from slimt_jax.io.synthetic import synthetic_model_bytes
+    from slimt_jax.text import spm_proto
+    from slimt_jax.text.synthetic_vocab import build_spm_model
 
     config = ModelConfig(
         encoder_layers=enc, decoder_layers=dec, num_heads=heads
@@ -134,7 +125,7 @@ def write_package(tmp, enc, dec, heads, emb, ffn, seed, bias_scale=None):
         config=config, vocab_size=VOCAB, emb_dim=emb, ffn_dim=ffn, seed=seed
     )
     if bias_scale is not None:
-        from slimt_tpu.io import marian
+        from slimt_jax.io import marian
 
         items = marian.load_items(model_bytes)
         for item in items:
@@ -168,7 +159,7 @@ def zero_logit_bias(model_bytes):
     """Re-serialize with decoder_ff_logit_out_b zeroed (isolates the
     reference Ruy provider's unselected-bias bug in shortlist cells —
     see module docstring)."""
-    from slimt_tpu.io import marian
+    from slimt_jax.io import marian
 
     items = marian.load_items(model_bytes)
     for item in items:
@@ -216,11 +207,10 @@ def run_reference(paths, config, sentences, batch, with_shortlist,
     ]
 
 
-def run_slimt_tpu(model_bytes, config, sentences, batch, eos, pad,
+def run_slimt_jax(model_bytes, config, sentences, batch, eos, pad,
                   shortlist_gen, kv_dtype="float32", argmax_method="exact",
-                  with_alignment=True, encoder_dtype=None,
-                  fused_sdpa=False, fused_layer=False):
-    """Decode through slimt_tpu. Defaults are the EXACT numerics
+                  with_alignment=True, encoder_dtype=None):
+    """Decode through slimt_jax. Defaults are the EXACT numerics
     (f32 KV cache, f32 variadic argmax — reference
     Transformer.cc:279-339 semantics); the serving mode overrides
     kv_dtype/argmax_method/with_alignment to diff the
@@ -231,9 +221,10 @@ def run_slimt_tpu(model_bytes, config, sentences, batch, eos, pad,
     import jax
     import jax.numpy as jnp
 
-    from slimt_tpu.io import load_items
-    from slimt_tpu.io.loader import load_weights
-    from slimt_tpu.models.decode import translate_batch
+    from slimt_jax import device
+    from slimt_jax.io import load_items
+    from slimt_jax.io.loader import load_weights
+    from slimt_jax.models.decode import translate_batch
 
     params = load_weights(load_items(model_bytes), config)
     # ONE jit wrapper (max_steps static): executables are cached per
@@ -244,7 +235,7 @@ def run_slimt_tpu(model_bytes, config, sentences, batch, eos, pad,
     # the one the service itself runs (models/model.py
     # translate_batch_jit) — byte-identical to the reference through
     # the e2e CLI differential.
-    fn = jax.jit(
+    fn = device.jit(
         functools.partial(
             translate_batch,
             eos_id=eos,
@@ -253,8 +244,6 @@ def run_slimt_tpu(model_bytes, config, sentences, batch, eos, pad,
             argmax_method=argmax_method,
             with_alignment=with_alignment,
             encoder_dtype=encoder_dtype,
-            fused_sdpa=fused_sdpa,
-            fused_layer=fused_layer,
         ),
         static_argnames=("max_steps",),
     )
@@ -308,7 +297,7 @@ def diff(name, ref, got, verbose):
         else:
             divergent.append(i)
             if verbose:
-                print(f"  line {i}: ref={r}\n          tpu={g}")
+                print(f"  line {i}: ref={r}\n          ours={g}")
         # Token-level: agreement over the aligned prefix + count length
         # mismatch as disagreement.
         n = max(len(r), len(g))
@@ -326,15 +315,15 @@ def diff(name, ref, got, verbose):
 def roundf_decode(model_bytes, config, sentence, eos, max_steps, shortlist):
     """Decode one sentence with the NumPy oracle patched to roundf
     (half-away-from-zero) activation quantization — the reference Ruy
-    provider's rounding (qmm/Ruy.inl.cc:14).  slimt_tpu uses rint
+    provider's rounding (qmm/Ruy.inl.cc:14).  slimt_jax uses rint
     (half-even, = x86 cvtps2dq, the intgemm/gemmology rounding); the
     reference's own providers disagree with each other on exact-half
     activations, so a divergence reproduced by this decode is the two
     PROVIDERS' delta, not an engine bug."""
     import unittest.mock as mock
 
-    from slimt_tpu.io import load_items
-    from slimt_tpu.io.loader import load_weights
+    from slimt_jax.io import load_items
+    from slimt_jax.io.loader import load_weights
     from tests import reference_impl as ri
 
     def quantize_roundf(x, mult):
@@ -361,7 +350,7 @@ def roundf_decode(model_bytes, config, sentence, eos, max_steps, shortlist):
 
 
 def mode_tokens(args):
-    from slimt_tpu.io.shortlist import ShortlistGenerator
+    from slimt_jax.io.shortlist import ShortlistGenerator
 
     worst_sent = 100.0
     with tempfile.TemporaryDirectory() as tmp:
@@ -394,7 +383,7 @@ def mode_tokens(args):
                     ref = run_reference(
                         cell_paths, config, sentences, batch, with_shortlist
                     )
-                    got = run_slimt_tpu(
+                    got = run_slimt_jax(
                         cell_bytes, config, sentences, batch, eos, pad,
                         gen if with_shortlist else None,
                     )
@@ -446,7 +435,7 @@ def mode_tokens(args):
         with open(paths["shortlist.bin"], "rb") as f:
             gen = ShortlistGenerator(f.read(), VOCAB)
         ref = run_reference(paths, config, sentences, 1, True)
-        got = run_slimt_tpu(
+        got = run_slimt_jax(
             model_bytes, config, sentences, 1, spm.eos_id,
             max(0, spm.pad_id), gen,
         )
@@ -455,7 +444,8 @@ def mode_tokens(args):
     return worst_sent
 
 
-def serving_corpus(lines, eos, seed, lengths=(7, 11, 15), batch=8):
+def serving_corpus(lines, eos, seed, lengths=(7, 11, 15), batch=8,
+                   vocab=VOCAB):
     """Corpus for the serving-numerics sweep: consecutive groups of
     `batch` sentences share a length, so every [B, T] batch shape (and
     its 1.5*T step cap) repeats — bounding XLA compiles to
@@ -467,7 +457,7 @@ def serving_corpus(lines, eos, seed, lengths=(7, 11, 15), batch=8):
     while len(out) < lines:
         n = int(lengths[(len(out) // batch) % len(lengths)])
         for _ in range(batch):
-            ids = rng.integers(2, VOCAB, n).astype(np.uint32).tolist()
+            ids = rng.integers(2, vocab, n).astype(np.uint32).tolist()
             ids.append(eos)
             out.append(ids)
     return out[:lines]
@@ -499,8 +489,8 @@ SERVING_CONFIGS = [
     # THE DECLARED SERVING CONFIG since round 5 (= ModelConfig
     # defaults = the bench headline): int16 per-row KV + packed_int
     # argmax + alignment-free — 99.69% tokens / 99.1% sentence-exact
-    # (the int16 KV's own ceiling; supersedes the round-3/4 packed_fp16
-    # stack at 99.57%, and is +10-19% faster at full vocab).
+    # (the int16 KV's own ceiling; supersedes the packed_fp16 stack at
+    # 99.57%).
     ("packedint+int16+noalign", {
         "kv_dtype": "int16", "argmax_method": "packed_int",
         "with_alignment": False,
@@ -544,26 +534,6 @@ SERVING_CONFIGS = [
     # error re-enters every decode step.
     ("enc=float16", {"encoder_dtype": "float16"}),
     ("enc=bfloat16", {"encoder_dtype": "bfloat16"}),
-    # Fused wrap-regime encoder SDPA kernel (ops/attention.
-    # fused_sdpa_joined): f32 throughout, deviates from the einsum
-    # path only in dot-accumulation order (exact-zero lane masking
-    # adds no error terms) — expected exact-class agreement; this row
-    # measures it rather than asserting it.
-    ("enc_sdpa=fused", {"fused_sdpa": True}),
-    # Whole-encoder-layer kernel (ops/encoder_layer_pallas) — the
-    # shipped encoder default on TPU (encoder_layer_kernel="auto"):
-    # int8 affines bit-exact, LN/softmax f32-order-only deviations.
-    ("enc_layer=fused", {"fused_layer": True}),
-    ("fusedlayer+int16+packedfp16+noalign", {
-        "fused_layer": True,
-        "kv_dtype": "int16", "argmax_method": "packed_fp16",
-        "with_alignment": False,
-    }),
-    ("fusedsdpa+int16+packedfp16+noalign", {
-        "fused_sdpa": True,
-        "kv_dtype": "int16", "argmax_method": "packed_fp16",
-        "with_alignment": False,
-    }),
     # Candidate full stack: fp16 encoder on top of the declared
     # serving config.
     ("encfp16+int16+packedfp16+noalign", {
@@ -575,12 +545,12 @@ SERVING_CONFIGS = [
 
 
 def mode_serving(args):
-    """Reduced-precision serving configs vs the reference binary
-    (VERDICT r2 task 1): 4 architectures × {full-vocab, shortlist} ×
-    B=8 × --serving-lines sentences per cell, for every config in
-    SERVING_CONFIGS. Prints one table (sentence-exact%, token
-    agreement%) and writes crosscheck/serving_agreement.json for
-    PERFORMANCE.md to cite. Exit status gates only the exact control
+    """Reduced-precision serving configs vs the reference binary:
+    4 architectures × {full-vocab, shortlist} × B=8 × --serving-lines
+    sentences per cell, for every config in SERVING_CONFIGS. Prints one
+    table (sentence-exact%, token agreement%) and writes
+    crosscheck/serving_agreement.json for PERF.md and the config
+    comments to cite. Exit status gates only the exact control
     row (>=98% sentences, the tokens-mode floor); the reduced rows are
     the published measurement."""
     configs = SERVING_CONFIGS
@@ -600,7 +570,7 @@ def mode_serving(args):
     batch = 8
     with tempfile.TemporaryDirectory() as tmp:
         for label, enc, dec, heads, emb, ffn, seed in CELLS + [PEAKED_CELL]:
-            from slimt_tpu.io.shortlist import ShortlistGenerator
+            from slimt_jax.io.shortlist import ShortlistGenerator
 
             peaked = label.startswith("STRESS")
             config, model_bytes, spm, paths = write_package(
@@ -634,7 +604,7 @@ def mode_serving(args):
                     cell_paths, config, sentences, batch, with_shortlist
                 )
                 for conf_label, opts in configs:
-                    got = run_slimt_tpu(
+                    got = run_slimt_jax(
                         cell_bytes, config, sentences, batch, eos, pad,
                         gen if with_shortlist else None, **opts,
                     )
@@ -770,8 +740,8 @@ def mode_serving(args):
 
 def mode_shortlist(args):
     """Directly diff ShortlistGenerator.generate (reference
-    Shortlist.cc:115-175 vs slimt_tpu io/shortlist.py)."""
-    from slimt_tpu.io.shortlist import ShortlistGenerator
+    Shortlist.cc:115-175 vs slimt_jax io/shortlist.py)."""
+    from slimt_jax.io.shortlist import ShortlistGenerator
 
     mismatches = total = 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -796,7 +766,7 @@ def mode_shortlist(args):
                     mismatches += 1
                     if args.verbose:
                         print(f"batch {idx}: ref={ref_lists[idx][:16]}...")
-                        print(f"          tpu={mine[:16]}...")
+                        print(f"          ours={mine[:16]}...")
                 idx += 1
     print(
         f"shortlist generation: {total - mismatches}/{total} batches "
@@ -857,7 +827,7 @@ def mode_split(args):
     """Diff the repo's regex-based splitter against the reference's
     PCRE2 Splitter.cc (compiled verbatim, real libpcre2) over the
     adversarial corpus: per-document byte-range boundary identity."""
-    from slimt_tpu.text.splitter import SentenceStream, SplitMode, Splitter
+    from slimt_jax.text.splitter import SentenceStream, SplitMode, Splitter
 
     mode_map = {
         "sentence": SplitMode.ONE_SENTENCE_PER_LINE,
@@ -910,23 +880,23 @@ def mode_split(args):
                                 f"prefixes={use_prefixes}:"
                             )
                             print(f"  ref={ref}")
-                            print(f"  tpu={mine}")
+                            print(f"  ours={mine}")
     print(f"splitter boundaries: {total - mismatch}/{total} documents identical")
     return mismatch
 
 
 def mode_process(args):
     """Text-pipeline differential: the reference TextProcessor (+real
-    Splitter/Annotation) vs slimt_tpu's text/processor.py on identical
+    Splitter/Annotation) vs slimt_jax's text/processor.py on identical
     text, SAME tokenizer on both sides (the shim Vocabulary bridges to
     native/slimt_host.cpp; the repo side forces backend='native') — so
     any diff is wrap/EOS/annotation semantics, not segmentation.
     Compares segments (ids incl. EOS) AND the AnnotatedText's sentence
     + word byte ranges."""
-    from slimt_tpu.text import spm_proto
-    from slimt_tpu.text.processor import TextProcessor
-    from slimt_tpu.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
-    from slimt_tpu.text.vocabulary import Vocabulary
+    from slimt_jax.text import spm_proto
+    from slimt_jax.text.processor import TextProcessor
+    from slimt_jax.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+    from slimt_jax.text.vocabulary import Vocabulary
 
     spm = build_spm_model(DEFAULT_WORDS)
     spm_bytes = spm_proto.serialize_model(spm)
@@ -975,7 +945,7 @@ def mode_process(args):
                             print(f"doc {doc_id} mode={mode} wrap={wrap}:")
                             for a, b in zip(ref + [""] * 9, mine + [""] * 9):
                                 if a != b:
-                                    print(f"  ref={a}\n  tpu={b}")
+                                    print(f"  ref={a}\n  ours={b}")
     print(
         f"text pipeline: {total - mismatch}/{total} documents identical "
         f"(segments + annotations)"
@@ -987,10 +957,10 @@ def mode_e2e(args):
     """The capstone differential: the reference's COMPLETE slimt-cli
     (app/main.cc + the full Frontend/Batcher/Request/Response service
     layer, compiled verbatim into crosscheck/bin/slimt_ref_cli) vs
-    `python -m slimt_tpu translate` on identical text and an identical
+    `python -m slimt_jax translate` on identical text and an identical
     synthetic package — text in, translated text out, exact string
     compare.  Tokenizer held identical on both sides (shim bridge /
-    SLIMT_TPU_BATCH_BACKEND=native); full-vocab only (the reference
+    SLIMT_JAX_BATCH_BACKEND=native); full-vocab only (the reference
     CLI's shortlist path carries the Ruy bias bug, see module
     docstring)."""
     cli = os.path.join(ROOT, "crosscheck", "bin", "slimt_ref_cli")
@@ -999,9 +969,9 @@ def mode_e2e(args):
     with tempfile.TemporaryDirectory() as tmp:
         pkg = os.path.join(tmp, "pkg")
         env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   SLIMT_TPU_BATCH_BACKEND="native")
+                   SLIMT_JAX_BATCH_BACKEND="native")
         subprocess.run(
-            [sys.executable, "-m", "slimt_tpu", "synth", "--out", pkg],
+            [sys.executable, "-m", "slimt_jax", "synth", "--out", pkg],
             check=True, capture_output=True, env=env, cwd=ROOT,
         )
         # Both CLIs prefix --root onto every path incl. --ssplit
@@ -1040,7 +1010,7 @@ def mode_e2e(args):
             # byte-identity gate must not depend on the shipped
             # serving defaults' (quantified, non-exact) agreement.
             mine = subprocess.run(
-                [sys.executable, "-m", "slimt_tpu", "translate",
+                [sys.executable, "-m", "slimt_jax", "translate",
                  "--root", pkg, "--ssplit", "prefixes.txt", "--exact"]
                 + html_flag,
                 input=doc, capture_output=True, text=True, check=True,
@@ -1075,7 +1045,7 @@ def mode_e2e(args):
                     if args.verbose:
                         print(f"document {doc_id} html={html}:")
                         print(f"  ref: {ref_text[:400]}")
-                        print(f"  tpu: {mine_text[:400]}")
+                        print(f"  ours: {mine_text[:400]}")
         # Informational (non-gating): the same documents through the
         # SHIPPED serving defaults (int16 KV + packed_fp16 — the
         # declared config; sentence-level agreement quantified in
@@ -1092,7 +1062,7 @@ def mode_e2e(args):
             )
             ref_text = "\n".join(ref.stdout.splitlines()[4:]).strip()
             mine = subprocess.run(
-                [sys.executable, "-m", "slimt_tpu", "translate",
+                [sys.executable, "-m", "slimt_jax", "translate",
                  "--root", pkg, "--ssplit", "prefixes.txt"] + html_flag,
                 input=doc, capture_output=True, text=True, check=True,
                 env=env, cwd=ROOT,
@@ -1111,25 +1081,25 @@ def mode_e2e(args):
 def mode_bleu(args):
     """THE driver metric, one command (reference scripts/run.sh:1-28:
     translate a test set with both engines, score with sacrebleu):
-    run the verbatim-compiled reference CLI and the slimt_tpu CLI on
+    run the verbatim-compiled reference CLI and the slimt_jax CLI on
     identical input and print corpus BLEU for both plus line-level
     agreement.
 
     With a real model package (--bleu-package, e.g. en-de tiny11 via
-    `python -m slimt_tpu download`) and a real test set
+    `python -m slimt_jax download`) and a real test set
     (--bleu-source/--bleu-reference, e.g. WNGT20), this prints the
     real-weights BLEU parity the reference README quotes. Offline —
     the default — it validates the identical plumbing on the synthetic
     package + data/corpus.txt, scoring against the reference CLI's own
     output as pseudo-reference (reference BLEU = 100 by construction;
-    the slimt_tpu rows then express translation agreement in BLEU
+    the slimt_jax rows then express translation agreement in BLEU
     units). Scoring: scripts/bleu.py, validated against the installed
     sacrebleu to 4 decimals (tests/test_bleu.py)."""
     from bleu import corpus_bleu
 
     cli = os.path.join(ROOT, "crosscheck", "bin", "slimt_ref_cli")
     env = dict(os.environ, JAX_PLATFORMS="cpu",
-               SLIMT_TPU_BATCH_BACKEND="native")
+               SLIMT_JAX_BATCH_BACKEND="native")
 
     with tempfile.TemporaryDirectory() as tmp:
         pkg = args.bleu_package
@@ -1137,7 +1107,7 @@ def mode_bleu(args):
         if pkg is None:
             pkg = os.path.join(tmp, "pkg")
             subprocess.run(
-                [sys.executable, "-m", "slimt_tpu", "synth", "--out", pkg],
+                [sys.executable, "-m", "slimt_jax", "synth", "--out", pkg],
                 check=True, capture_output=True, env=env, cwd=ROOT,
             )
             with open(os.path.join(pkg, "prefixes.txt"), "w") as f:
@@ -1166,7 +1136,7 @@ def mode_bleu(args):
 
         def run_mine(extra):
             mine = subprocess.run(
-                [sys.executable, "-m", "slimt_tpu", "translate",
+                [sys.executable, "-m", "slimt_jax", "translate",
                  "--root", pkg, "--model", model_name,
                  "--vocabulary", vocab_name] + ssplit + extra,
                 input=text, capture_output=True, text=True, check=True,
@@ -1190,8 +1160,8 @@ def mode_bleu(args):
         rows = {}
         for label, lines in (
             ("reference_cli", ref_lines),
-            ("slimt_tpu_serving", serving_lines),
-            ("slimt_tpu_exact", exact_lines),
+            ("slimt_jax_serving", serving_lines),
+            ("slimt_jax_exact", exact_lines),
         ):
             score, detail = corpus_bleu(lines[:n], references[:n])
             rows[f"bleu_{label}"] = round(score, 2)
@@ -1204,7 +1174,7 @@ def mode_bleu(args):
         out = {
             **rows,
             "delta_serving": round(
-                rows["bleu_slimt_tpu_serving"] - rows["bleu_reference_cli"], 2
+                rows["bleu_slimt_jax_serving"] - rows["bleu_reference_cli"], 2
             ),
             "lines": n,
             "line_exact_vs_reference_serving": round(agree_serving / n, 4),
@@ -1251,7 +1221,7 @@ def main():
     parser.add_argument(
         "--bleu-package", default=None,
         help="model package dir for the bleu mode (default: synthetic "
-        "package; for real weights: python -m slimt_tpu download)",
+        "package; for real weights: python -m slimt_jax download)",
     )
     parser.add_argument("--bleu-model", default="model.bin")
     parser.add_argument("--bleu-vocab", default="vocab.spm")

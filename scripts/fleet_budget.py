@@ -1,13 +1,9 @@
-"""Router-sharded fleet throughput at absolute scale (no TPU needed).
+"""Router-sharded fleet throughput at absolute scale (no device needed).
 
-VERDICT r4 task 5: the host-core budget (scripts/ubench_host_budget.py)
-concluded "~3 router-sharded single-core processes feed one chip", but
-that was arithmetic from the single-process ceiling; the only measured
-fleet number (scripts/scaling_demo.py, ~29k tok/s) ran REAL CPU-JAX
-decode on every backend — 25x below the single-process corpus rate —
-so it measured CPU decode, not the fleet. This script measures the
-claim itself: N slimt_tpu.server processes with the DEVICE FORWARD
-STUBBED to an instant echo (SLIMT_TPU_STUB_DEVICE=1 — every host stage
+scripts/scaling_demo.py runs REAL CPU-JAX decode on every backend, so
+it measures CPU decode, not the fleet. This script measures the fleet
+itself: N slimt_jax.server processes with the DEVICE FORWARD
+STUBBED to an instant echo (SLIMT_JAX_STUB_DEVICE=1 — every host stage
 real: HTTP, JSON, ingest, packing, completion, detokenize) behind
 runtime.router, 10k-line corpus, aggregate tokens/s vs N.
 
@@ -43,7 +39,7 @@ ENV = dict(
     os.environ,
     JAX_PLATFORMS="cpu",
     PYTHONPATH=REPO,
-    SLIMT_TPU_STUB_DEVICE="1",
+    SLIMT_JAX_STUB_DEVICE="1",
 )
 
 
@@ -96,7 +92,7 @@ def best_push(url, lines, iters=3):
 
 def start_backend(pkg, port):
     proc = subprocess.Popen(
-        [sys.executable, "-m", "slimt_tpu.server",
+        [sys.executable, "-m", "slimt_jax.server",
          "--root", pkg, "--port", str(port), "--workers", "2"],
         env=ENV, cwd=REPO,
         stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
@@ -116,14 +112,14 @@ def stop_all(procs):
 
 def local_bulk_rate(pkg, n):
     """Transportless in-process ceiling: stubbed model through
-    Blocking.translate_bulk (same machinery ubench_host_budget times)."""
+    Blocking.translate_bulk."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from slimt_tpu.config import Config, preset
-    from slimt_tpu.models.model import Model, Package
-    from slimt_tpu.runtime.service import Blocking
-    from slimt_tpu.utils import stub_device_forward
+    from slimt_jax.config import Config, preset
+    from slimt_jax.models.model import Model, Package
+    from slimt_jax.runtime.service import Blocking
+    from slimt_jax.utils import stub_device_forward
 
     # Same package the servers load, same host pipeline.
     model = Model(
@@ -161,7 +157,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         pkg = os.path.join(tmp, "pkg")
         subprocess.run(
-            [sys.executable, "-m", "slimt_tpu", "synth", "--out", pkg],
+            [sys.executable, "-m", "slimt_jax", "synth", "--out", pkg],
             env=ENV, cwd=REPO, check=True, capture_output=True,
         )
 
@@ -195,7 +191,7 @@ def main():
                 for url in urls:
                     wait_health(url)
                 router = subprocess.Popen(
-                    [sys.executable, "-m", "slimt_tpu.runtime.router",
+                    [sys.executable, "-m", "slimt_jax.runtime.router",
                      "--port", str(args.base_port)]
                     + [a for u in urls for a in ("--backend", u)],
                     env=ENV, cwd=REPO,

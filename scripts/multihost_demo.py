@@ -8,7 +8,7 @@ recipe that replaces the reference's single-machine worker threads
 (SURVEY §2.2).
 
 Driven by tests/test_multiprocess.py with N CPU processes; on real
-pods the same flow runs one process per TPU host.
+clusters the same flow runs one process per host.
 
 Usage: multihost_demo.py <process_id> <num_processes> <coordinator>
 """
@@ -35,7 +35,7 @@ def main() -> int:
     num_processes = int(sys.argv[2])
     coordinator = sys.argv[3]
 
-    from slimt_tpu.parallel import multihost
+    from slimt_jax.parallel import multihost
 
     multihost.initialize(
         coordinator_address=coordinator,
@@ -43,12 +43,12 @@ def main() -> int:
         process_id=process_id,
     )
 
-    from slimt_tpu.config import Config, ModelConfig
-    from slimt_tpu.io.synthetic import synthetic_model_bytes
-    from slimt_tpu.models.model import Model, Package
-    from slimt_tpu.runtime.service import Blocking
-    from slimt_tpu.text import spm_proto
-    from slimt_tpu.text.synthetic_vocab import build_spm_model
+    from slimt_jax.config import Config, ModelConfig
+    from slimt_jax.io.synthetic import synthetic_model_bytes
+    from slimt_jax.models.model import Model, Package
+    from slimt_jax.runtime.service import Blocking
+    from slimt_jax.text import spm_proto
+    from slimt_jax.text.synthetic_vocab import build_spm_model
 
     config = ModelConfig(encoder_layers=2, decoder_layers=2, num_heads=4)
     words = ["hello", "world", "test", "quick", "brown"]

@@ -35,10 +35,6 @@ os.environ.setdefault(
 )
 
 import jax  # noqa: E402
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import NamedSharding  # noqa: E402
 
@@ -46,8 +42,9 @@ from jax.sharding import NamedSharding  # noqa: E402
 def measure(params, config, mesh_kw, batch, seq, steps, repeats=5):
     """Best-of-N wall time for the jitted sharded decode at fixed
     total batch; returns tokens/s."""
-    from slimt_tpu.models.decode import translate_batch
-    from slimt_tpu.parallel import sharding as shd
+    from slimt_jax import device
+    from slimt_jax.models.decode import translate_batch
+    from slimt_jax.parallel import sharding as shd
 
     mesh = shd.make_mesh(**mesh_kw)
     n = int(np.prod(list(mesh.shape.values())))
@@ -61,7 +58,7 @@ def measure(params, config, mesh_kw, batch, seq, steps, repeats=5):
     bspec = NamedSharding(mesh, shd.batch_pspec(seq=seq_sharded))
 
     rng = np.random.default_rng(0)
-    fn = jax.jit(
+    fn = device.jit(
         lambda p, i, m: translate_batch(
             p, i, m,
             eos_id=-1,  # full-length decode: fixed work per run
@@ -101,10 +98,10 @@ def main():
     parser.add_argument("--steps", type=int, default=12)
     args = parser.parse_args()
 
-    from slimt_tpu.config import ModelConfig
-    from slimt_tpu.io import load_items
-    from slimt_tpu.io.loader import load_weights
-    from slimt_tpu.io.synthetic import synthetic_model_bytes
+    from slimt_jax.config import ModelConfig
+    from slimt_jax.io import load_items
+    from slimt_jax.io.loader import load_weights
+    from slimt_jax.io.synthetic import synthetic_model_bytes
 
     config = ModelConfig(encoder_layers=3, decoder_layers=2, num_heads=4)
     items = load_items(

@@ -1,21 +1,20 @@
-"""Shared-nothing fleet scaling demo (CPU; no TPU needed).
+"""Shared-nothing fleet scaling demo (CPU; no device needed).
 
-NOTE (round 5): the absolute numbers this demo prints are bounded by
-CPU-JAX DECODE on each backend (~15k tok/s/backend), not by the fleet
-machinery — for the fleet/transport measurement at real scale use
-scripts/fleet_budget.py (device stubbed: router N=3 measured 1.43M
-tok/s on the same host). This demo remains the end-to-end smoke of
-the REAL decode path behind the router.
+The absolute numbers this demo prints are bounded by CPU-JAX DECODE on
+each backend, not by the fleet machinery — for the fleet/transport
+measurement at real scale use scripts/fleet_budget.py (device
+stubbed). This demo remains the end-to-end smoke of the REAL decode
+path behind the router.
 
-Starts N independent slimt_tpu.server processes (the DEPLOYMENT.md
+Starts N independent slimt_jax.server processes (the DEPLOYMENT.md
 "N hosts" mode, each process = one host) behind the runtime.router
 front door, pushes the same corpus through the router at each fleet
 size, and reports tokens/s and scaling efficiency vs one backend.
 
 On this mode there is no cross-host communication in the serving path,
 so efficiency is bounded only by the client/router host's own cores —
-on real TPU hosts (one process per host, one router) it is 1.0 by
-construction. BASELINE.md's ≥0.8 target is about exactly this number.
+with one process per GPU host and one router it is 1.0 by
+construction.
 
 Usage: python scripts/scaling_demo.py [--backends 1 2] [--lines 2000]
 """
@@ -84,7 +83,7 @@ def run_fleet(pkg, n_backends, lines, base_port):
             port = base_port + 1 + i
             procs.append(
                 subprocess.Popen(
-                    [sys.executable, "-m", "slimt_tpu.server",
+                    [sys.executable, "-m", "slimt_jax.server",
                      "--root", pkg, "--port", str(port)],
                     env=ENV, cwd=REPO,
                     stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
@@ -94,7 +93,7 @@ def run_fleet(pkg, n_backends, lines, base_port):
         for url in urls:
             wait_health(url)
         router = subprocess.Popen(
-            [sys.executable, "-m", "slimt_tpu.runtime.router",
+            [sys.executable, "-m", "slimt_jax.runtime.router",
              "--port", str(base_port)]
             + [arg for url in urls for arg in ("--backend", url)],
             env=ENV, cwd=REPO,
@@ -129,7 +128,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         pkg = os.path.join(tmp, "pkg")
         subprocess.run(
-            [sys.executable, "-m", "slimt_tpu", "synth", "--out", pkg],
+            [sys.executable, "-m", "slimt_jax", "synth", "--out", pkg],
             env=ENV, cwd=REPO, check=True, capture_output=True,
         )
         results = {}

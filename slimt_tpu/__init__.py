@@ -1,35 +1,43 @@
-"""slimt_tpu — a TPU-native quantized machine-translation inference engine.
+"""The package's former import name, kept so that code written against
+it goes on working. Importing this package, or any module under it,
+gives the very module objects of `slimt_jax` (one copy of every class
+and of every jit cache), with a DeprecationWarning."""
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-jerinphilip/slimt (the Bergamot/Marian "tiny student" inference frontend):
-INT8 weight-quantized transformer encoder + SSRU decoder models, lexical
-shortlists, sentencepiece tokenization, sentence splitting, request
-batching, HTML passthrough, pivot translation — designed TPU-first.
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-Public surface (mirrors the reference umbrella header slimt/slimt.hh:1-5):
-
-    from slimt_tpu import Model, Package, Blocking, Async, Config
-"""
-
-__version__ = "0.1.0"
-
-from slimt_tpu.config import Config, ModelConfig, preset  # noqa: F401
-
-_LAZY = {
-    "Model": ("slimt_tpu.models.model", "Model"),
-    "Package": ("slimt_tpu.models.model", "Package"),
-    "Blocking": ("slimt_tpu.runtime.service", "Blocking"),
-    "Async": ("slimt_tpu.runtime.service", "Async"),
-    "Response": ("slimt_tpu.runtime.response", "Response"),
-}
+_NEW = "slimt_jax"
 
 
-def __getattr__(name):
-    # Lazy imports keep `import slimt_tpu` light (no JAX load for
-    # IO/text-only users) and avoid import cycles.
-    if name in _LAZY:
-        import importlib
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """`<this package>.x.y` resolves to `slimt_jax.x.y`."""
 
-        module, attr = _LAZY[name]
-        return getattr(importlib.import_module(module), attr)
-    raise AttributeError(name)
+    def __init__(self):
+        self._specs = {}
+
+    def find_spec(self, name, path=None, target=None):
+        if name.startswith(__name__ + "."):
+            return importlib.util.spec_from_loader(name, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(__name__):])
+        self._specs[spec.name] = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # The import system set __spec__ to the alias's; give the module
+        # its own back.
+        module.__spec__ = self._specs.pop(module.__spec__.name)
+
+
+warnings.warn(
+    f"the package {__name__!r} is now {_NEW!r}; import {_NEW}",
+    DeprecationWarning,
+    stacklevel=2,
+)
+sys.meta_path.insert(0, _Alias())
+sys.modules[__name__] = importlib.import_module(_NEW)

@@ -1,11 +1,11 @@
 """Shared test fixtures: complete synthetic model packages."""
 
-from slimt_tpu.config import ModelConfig
-from slimt_tpu.io.shortlist import build_synthetic_shortlist
-from slimt_tpu.io.synthetic import synthetic_model_bytes
-from slimt_tpu.models.model import Model, Package
-from slimt_tpu.text import spm_proto
-from slimt_tpu.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+from slimt_jax.config import ModelConfig
+from slimt_jax.io.shortlist import build_synthetic_shortlist
+from slimt_jax.io.synthetic import synthetic_model_bytes
+from slimt_jax.models.model import Model, Package
+from slimt_jax.text import spm_proto
+from slimt_jax.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
 
 TINY_TEST_CONFIG = ModelConfig(encoder_layers=2, decoder_layers=2, num_heads=4)
 

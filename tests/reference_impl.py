@@ -2,7 +2,7 @@
 
 Written directly from the reference C++ semantics (slimt/Modules.cc,
 slimt/Transformer.cc, slimt/TensorOps.cc) to serve as the golden oracle
-for the JAX/Pallas implementation — the analog of the reference's
+for the JAX implementation — the analog of the reference's
 generated-unit golden-blob tests (SURVEY.md §4.1). Deliberately simple
 loops/numpy, no JAX.
 """

@@ -1,12 +1,12 @@
-"""Blockwise Pallas attention vs the einsum SDPA reference."""
+"""Query-chunked attention vs the einsum SDPA reference."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from slimt_tpu.models import transformer as tfm
-from slimt_tpu.ops.attention import blockwise_attention
+from slimt_jax.models import transformer as tfm
+from slimt_jax.ops.attention import chunked_attention
 
 
 def _case(b=2, h=4, t=96, d=32, seed=0, pad=5):
@@ -26,17 +26,17 @@ def _case(b=2, h=4, t=96, d=32, seed=0, pad=5):
 def test_matches_sdpa():
     q, k, v, mask_add = _case()
     want, _ = tfm.scaled_dot_product_attention(q, k, v, mask_add)
-    got = blockwise_attention(q, k, v, mask_add)
+    got = chunked_attention(q, k, v, mask_add)
     np.testing.assert_allclose(
         np.asarray(got), np.asarray(want), atol=2e-5, rtol=1e-5
     )
 
 
 def test_long_sequence_blocks():
-    # T > BLOCK_Q exercises the grid over query blocks
+    # T > BLOCK_Q exercises the map over query blocks
     q, k, v, mask_add = _case(b=1, h=2, t=512, d=32, pad=17)
     want, _ = tfm.scaled_dot_product_attention(q, k, v, mask_add)
-    got = blockwise_attention(q, k, v, mask_add)
+    got = chunked_attention(q, k, v, mask_add)
     np.testing.assert_allclose(
         np.asarray(got), np.asarray(want), atol=2e-5, rtol=1e-5
     )
@@ -45,17 +45,17 @@ def test_long_sequence_blocks():
 def test_uneven_block():
     q, k, v, mask_add = _case(b=1, h=1, t=200, d=32, pad=0)
     want, _ = tfm.scaled_dot_product_attention(q, k, v, mask_add)
-    got = blockwise_attention(q, k, v, mask_add)
+    got = chunked_attention(q, k, v, mask_add)
     np.testing.assert_allclose(
         np.asarray(got), np.asarray(want), atol=2e-5, rtol=1e-5
     )
 
 
 def test_encoder_with_flash_matches(params=None):
-    from slimt_tpu.config import ModelConfig
-    from slimt_tpu.io import load_items
-    from slimt_tpu.io.loader import load_weights
-    from slimt_tpu.io.synthetic import synthetic_model_bytes
+    from slimt_jax.config import ModelConfig
+    from slimt_jax.io import load_items
+    from slimt_jax.io.loader import load_weights
+    from slimt_jax.io.synthetic import synthetic_model_bytes
 
     config = ModelConfig(encoder_layers=2, decoder_layers=1, num_heads=4)
     items = load_items(

@@ -4,8 +4,8 @@ import json
 
 import pytest
 
-from slimt_tpu.bindings import Service, sentences, to_json, words
-from slimt_tpu.text.annotation import Encoding
+from slimt_jax.bindings import Service, sentences, to_json, words
+from slimt_jax.text.annotation import Encoding
 
 from .helpers import make_model
 
@@ -93,7 +93,7 @@ def test_patch_marian_for_slimt(tmp_path):
     overridden, everything else survives, quality adds its pair."""
     import yaml
 
-    from slimt_tpu.bindings import patch_marian_for_slimt
+    from slimt_jax.bindings import patch_marian_for_slimt
 
     marian = tmp_path / "marian.yml"
     marian.write_text(

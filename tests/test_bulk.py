@@ -6,9 +6,9 @@ import dataclasses
 
 import pytest
 
-from slimt_tpu.config import Config
-from slimt_tpu.runtime.response import Options
-from slimt_tpu.runtime.service import Blocking
+from slimt_jax.config import Config
+from slimt_jax.runtime.response import Options
+from slimt_jax.runtime.service import Blocking
 
 from .helpers import make_model
 
@@ -123,7 +123,7 @@ def test_pack_budget_and_oversize():
     """_pack follows the Batcher's greedy rule ((n+1)*maxlen <=
     max_words, slimt/Batcher.cc:95-120) and emits an oversize segment
     as a singleton batch instead of stalling."""
-    from slimt_tpu.runtime.bulk import _pack
+    from slimt_jax.runtime.bulk import _pack
 
     flat = sorted(
         [(3, 0, 0, [1] * 3), (3, 1, 0, [2] * 3), (5, 2, 0, [3] * 5),
@@ -193,7 +193,7 @@ def test_bulk_process_ingest_matches(model):
 def test_ingest_pool_fallback_after_close():
     """A closed/broken IngestPool returns None from submit; callers
     fall back to in-process ingest."""
-    from slimt_tpu.text.ingest_pool import IngestPool
+    from slimt_jax.text.ingest_pool import IngestPool
 
     pool = IngestPool(workers=1)
     pool.close()
@@ -201,7 +201,7 @@ def test_ingest_pool_fallback_after_close():
 
 
 def test_service_facade_translate_bulk(model):
-    from slimt_tpu.bindings import Service
+    from slimt_jax.bindings import Service
 
     svc = Service(workers=1, cache_size=64)
     try:
@@ -240,7 +240,7 @@ def test_bulk_one_sentence_per_line_matches_general(model):
     match the general path, including texts the fast path must skip
     (embedded newline, trailing CR) and texts it handles (trailing
     whitespace, multi-sentence punctuation treated as one sentence)."""
-    from slimt_tpu.text.splitter import SplitMode
+    from slimt_jax.text.splitter import SplitMode
 
     corpus = [
         "hello world",
@@ -273,7 +273,7 @@ def test_bulk_paragraph_modes_match_general(model, mode):
     """Paragraph/wrapped split modes through the columnar lane: the
     splitter yields empty paragraph-boundary markers that the lane
     must skip while preserving the byte gaps around them."""
-    from slimt_tpu.text.splitter import SplitMode
+    from slimt_jax.text.splitter import SplitMode
 
     corpus = [
         "hello world. goodbye test.\n\nnew paragraph here. one two.",
@@ -335,7 +335,7 @@ def test_pivot_bulk_leg2_matches_request_path(model, opts):
 def test_bulk_lazy_response_encoding_conversion(model):
     """Encoding.to(UTF8/BYTE) on lazy (from_arrays) bulk Responses
     materializes and converts identically to the request path."""
-    from slimt_tpu.text.annotation import Encoding
+    from slimt_jax.text.annotation import Encoding
 
     texts = ["héllo wörld", "hello world. ünïcode."]
     bulk = Blocking(Config(cache_size=0)).translate_bulk(model, texts)

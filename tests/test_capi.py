@@ -1,4 +1,4 @@
-"""C embedding ABI (native/slimt_capi.{h,cpp} + slimt_tpu/capi.py).
+"""C embedding ABI (native/slimt_capi.{h,cpp} + slimt_jax/capi.py).
 
 Two layers of coverage:
 - the Python object-table backend directly (fast, no compiler);
@@ -49,7 +49,7 @@ def _spec(package_dir, **overrides):
 
 
 def test_capi_python_backend(package_dir):
-    from slimt_tpu import capi
+    from slimt_jax import capi
 
     capi.init()
     service = capi.service_create(1, 128)
@@ -77,7 +77,7 @@ def test_capi_python_backend(package_dir):
 
 
 def test_capi_model_create_rejects_missing_file(package_dir):
-    from slimt_tpu import capi
+    from slimt_jax import capi
 
     with pytest.raises(FileNotFoundError):
         capi.model_create(_spec(package_dir, model="/nonexistent/m.bin"))
@@ -112,15 +112,15 @@ def test_capi_shared_library_end_to_end(package_dir, tmp_path):
     # Config overrides ride the spec via a tiny wrapper package dir:
     # embed_capi.cc uses the plain tiny preset, so hand it a package
     # built with the full preset shapes.
-    from slimt_tpu.config import preset
+    from slimt_jax.config import preset
 
     full = tmp_path / "pkg"
     full.mkdir()
     package = make_package(config=preset.tiny(), emb_dim=32, ffn_dim=64)
     (full / "model.bin").write_bytes(package.model)
     (full / "vocab.spm").write_bytes(package.vocabulary)
-    from slimt_tpu.io.shortlist import build_synthetic_shortlist
-    from slimt_tpu.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
+    from slimt_jax.io.shortlist import build_synthetic_shortlist
+    from slimt_jax.text.synthetic_vocab import DEFAULT_WORDS, build_spm_model
 
     vocab_size = max(len(build_spm_model(DEFAULT_WORDS).pieces), 64)
     (full / "shortlist.bin").write_bytes(
@@ -129,7 +129,7 @@ def test_capi_shared_library_end_to_end(package_dir, tmp_path):
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["SLIMT_TPU_PYTHONPATH"] = REPO
+    env["SLIMT_JAX_PYTHONPATH"] = REPO
     env.pop("XLA_FLAGS", None)  # plain single-device CPU is enough
     result = subprocess.run(
         [str(binary), str(full)],

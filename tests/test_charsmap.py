@@ -5,9 +5,9 @@ here; the builder itself is validated by HF parsing its output)."""
 
 import pytest
 
-from slimt_tpu.text import spm_proto
-from slimt_tpu.text.synthetic_vocab import build_spm_model
-from slimt_tpu.text.vocabulary import Vocabulary
+from slimt_jax.text import spm_proto
+from slimt_jax.text.synthetic_vocab import build_spm_model
+from slimt_jax.text.vocabulary import Vocabulary
 
 from .darts import build_charsmap
 
@@ -111,7 +111,7 @@ def test_native_batch_matches_single_with_charsmap(vocabs):
 def test_ingest_lines_with_charsmap(vocabs):
     if vocabs["native"] is None:
         pytest.skip("native backend unavailable")
-    from slimt_tpu.text.processor import TextProcessor
+    from slimt_jax.text.processor import TextProcessor
 
     proc = TextProcessor("sentence", vocabs["native"])
     results = proc.process_batch(TEXTS, 8)

@@ -5,13 +5,13 @@ import io
 import numpy as np
 import pytest
 
-from slimt_tpu.config import Config, ModelConfig
-from slimt_tpu.io import checkpoint as ckpt
-from slimt_tpu.io import load_items
-from slimt_tpu.io.loader import load_weights, stack_layers
-from slimt_tpu.io.synthetic import synthetic_model_bytes
-from slimt_tpu.models.model import Model, Package
-from slimt_tpu.runtime.service import Blocking
+from slimt_jax.config import Config, ModelConfig
+from slimt_jax.io import checkpoint as ckpt
+from slimt_jax.io import load_items
+from slimt_jax.io.loader import load_weights, stack_layers
+from slimt_jax.io.synthetic import synthetic_model_bytes
+from slimt_jax.models.model import Model, Package
+from slimt_jax.runtime.service import Blocking
 
 from .helpers import TINY_TEST_CONFIG, make_package
 

@@ -18,7 +18,7 @@ ENV = dict(
 
 def _run(*argv, input_text=""):
     return subprocess.run(
-        [sys.executable, "-m", "slimt_tpu", *argv],
+        [sys.executable, "-m", "slimt_jax", *argv],
         input=input_text,
         capture_output=True,
         text=True,
@@ -66,7 +66,7 @@ def _seed_repository(tmp_path):
     import tarfile
 
     repo_dir = tmp_path / "repo"
-    base = repo_dir / "slimt_tpu" / "browsermt"
+    base = repo_dir / "slimt_jax" / "browsermt"
     (base / "archives").mkdir(parents=True)
     inventory = {
         "models": [
@@ -101,7 +101,7 @@ def test_download_unpacks_cached_archive(tmp_path):
     )
     assert result.returncode == 0, result.stderr
     unpacked = os.path.join(
-        repo_root, "slimt_tpu", "browsermt", "models", "en-xx-tiny",
+        repo_root, "slimt_jax", "browsermt", "models", "en-xx-tiny",
         "en-xx-tiny",
     )
     assert os.path.exists(os.path.join(unpacked, "config.intgemm8.yml"))
@@ -109,7 +109,7 @@ def test_download_unpacks_cached_archive(tmp_path):
 
     # The repository layer resolves the unpacked config path (what
     # `translate -m <code>` style flows consume in the reference).
-    from slimt_tpu.repository import TranslateLocallyLike
+    from slimt_jax.repository import TranslateLocallyLike
 
     repo = TranslateLocallyLike(
         "browsermt", "https://example.invalid/models.json", root=repo_root
@@ -157,7 +157,7 @@ def test_ls_empty(tmp_path):
 
 
 def test_cli_inspect(tmp_path, capsys):
-    from slimt_tpu.cli import main
+    from slimt_jax.cli import main
 
     package = tmp_path / "pkg"
     assert main(["synth", "--out", str(package)]) == 0
@@ -190,8 +190,8 @@ def test_translate_remote_url():
     import json
     import urllib.request
 
-    from slimt_tpu.config import Config
-    from slimt_tpu.server import TranslationServer, serve
+    from slimt_jax.config import Config
+    from slimt_jax.server import TranslationServer, serve
 
     from .helpers import make_model
 

@@ -10,10 +10,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from slimt_tpu.io import load_items
-from slimt_tpu.io.loader import load_weights
-from slimt_tpu.io.synthetic import synthetic_model_bytes
-from slimt_tpu.models.decode import (
+from slimt_jax.io import load_items
+from slimt_jax.io.loader import load_weights
+from slimt_jax.io.synthetic import synthetic_model_bytes
+from slimt_jax.models.decode import (
     compact_result,
     translate_batch_jit,
     unpack_compact,
@@ -71,7 +71,7 @@ def test_compact_result_matches_manual_packing(b, s):
     res_tokens = jnp.asarray(rng.integers(0, 65535, (b, s)).astype(np.int32))
     res_valid = jnp.asarray(rng.integers(0, 2, (b, s)).astype(bool))
 
-    from slimt_tpu.models.decode import GreedyResult
+    from slimt_jax.models.decode import GreedyResult
 
     res = GreedyResult(res_tokens, res_valid, jnp.zeros((b, s, 0)))
     c = compact_result(res)
@@ -83,9 +83,9 @@ def test_compact_result_matches_manual_packing(b, s):
 
 
 def test_service_outputs_identical_with_and_without_compaction():
-    from slimt_tpu.config import Config, ModelConfig
-    from slimt_tpu.models.model import Model
-    from slimt_tpu.runtime.service import Blocking
+    from slimt_jax.config import Config, ModelConfig
+    from slimt_jax.models.model import Model
+    from slimt_jax.runtime.service import Blocking
 
     texts = ["hello world", "the quick brown fox jumps", "a b c d e"]
     outs = []
@@ -119,8 +119,8 @@ def test_service_outputs_identical_with_and_without_compaction():
 
 def test_compaction_disabled_for_wide_vocab():
     """vocab_size > 65535 must silently fall back to plain transport."""
-    from slimt_tpu.config import ModelConfig
-    from slimt_tpu.models.model import Model
+    from slimt_jax.config import ModelConfig
+    from slimt_jax.models.model import Model
 
     model = Model(
         ModelConfig(

@@ -12,12 +12,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from slimt_tpu.config import ModelConfig
-from slimt_tpu.io import load_items
-from slimt_tpu.io.loader import load_weights
-from slimt_tpu.io.synthetic import synthetic_model_bytes
-from slimt_tpu.models import decode as dec
-from slimt_tpu.models.continuous import (
+from slimt_jax.config import ModelConfig
+from slimt_jax.io import load_items
+from slimt_jax.io.loader import load_weights
+from slimt_jax.io.synthetic import synthetic_model_bytes
+from slimt_jax.models import decode as dec
+from slimt_jax.models.continuous import (
     ContinuousEngine,
     chunk_decode,
     encode_segments,
@@ -125,7 +125,7 @@ def test_chunk_transport_roundtrip(params):
     """unpack_chunk inverts chunk_decode's packed buffer."""
     pool = make_pool(params, slots=4, t_slot=T_SLOT)
     segs = segments_fixture(n=4, seed=3)
-    from slimt_tpu.models.continuous import admit
+    from slimt_jax.models.continuous import admit
 
     a = 4
     indices = np.zeros((a, T_SLOT), np.int32)
@@ -162,7 +162,7 @@ def test_overlength_segment_raises(params):
 
 
 def test_vocab_bound_guard():
-    from slimt_tpu.models.continuous import ContinuousEngine as CE
+    from slimt_jax.models.continuous import ContinuousEngine as CE
 
     big = ModelConfig(encoder_layers=1, decoder_layers=1)
     items = load_items(

@@ -3,7 +3,7 @@
 Compiles the ACTUAL reference implementation's core
 (/root/reference/slimt — Io, TensorOps, QMM(Ruy), Modules,
 Transformer, Shortlist, Splitter over the real PCRE2) into
-crosscheck/bin/slimt_ref_harness and diffs slimt_tpu against it.
+crosscheck/bin/slimt_ref_harness and diffs slimt_jax against it.
 This is the cross-implementation evidence layer on top of the NumPy
 oracle (tests/reference_impl.py): the oracle shares an author with the
 engine; the harness does not share code with either.
@@ -63,7 +63,7 @@ def cell(crosscheck, tmp_path_factory):
 
 def test_shortlist_generation_bit_identical(cell):
     cc, config, model_bytes, spm, paths = cell
-    from slimt_tpu.io.shortlist import ShortlistGenerator
+    from slimt_jax.io.shortlist import ShortlistGenerator
 
     with open(paths["shortlist.bin"], "rb") as f:
         gen = ShortlistGenerator(f.read(), cc.VOCAB)
@@ -80,7 +80,7 @@ def test_full_vocab_decode_token_exact(cell, batch):
     cc, config, model_bytes, spm, paths = cell
     sentences = cc.corpus(8, spm.eos_id, 11)
     ref = cc.run_reference(paths, config, sentences, batch, False)
-    got = cc.run_slimt_tpu(
+    got = cc.run_slimt_jax(
         model_bytes, config, sentences, batch, spm.eos_id,
         max(0, spm.pad_id), None,
     )
@@ -92,7 +92,7 @@ def test_shortlist_decode_token_exact_zero_bias(cell):
     # unselected-bias bug (qmm/Ruy.inl.cc:169-199) — see
     # scripts/crosscheck.py docstring.
     cc, config, model_bytes, spm, paths = cell
-    from slimt_tpu.io.shortlist import ShortlistGenerator
+    from slimt_jax.io.shortlist import ShortlistGenerator
 
     nobias = cc.zero_logit_bias(model_bytes)
     nobias_path = paths["model.bin"] + ".nobias"
@@ -104,7 +104,7 @@ def test_shortlist_decode_token_exact_zero_bias(cell):
     ref = cc.run_reference(
         dict(paths, **{"model.bin": nobias_path}), config, sentences, 1, True
     )
-    got = cc.run_slimt_tpu(
+    got = cc.run_slimt_jax(
         nobias, config, sentences, 1, spm.eos_id, max(0, spm.pad_id), gen
     )
     assert got == ref
@@ -147,7 +147,7 @@ def test_serving_config_agreement_vs_reference(cell):
     cc, config, model_bytes, spm, paths = cell
     sentences = cc.serving_corpus(32, spm.eos_id, 17)
     ref = cc.run_reference(paths, config, sentences, 8, False)
-    got = cc.run_slimt_tpu(
+    got = cc.run_slimt_jax(
         model_bytes, config, sentences, 8, spm.eos_id,
         max(0, spm.pad_id), None,
         kv_dtype="int16", argmax_method="packed_int",

@@ -5,10 +5,10 @@ import string
 
 import pytest
 
-from slimt_tpu.config import Config
-from slimt_tpu.runtime.service import Blocking
-from slimt_tpu.text.processor import TextProcessor
-from slimt_tpu.text.synthetic_vocab import build_vocabulary
+from slimt_jax.config import Config
+from slimt_jax.runtime.service import Blocking
+from slimt_jax.text.processor import TextProcessor
+from slimt_jax.text.synthetic_vocab import build_vocabulary
 
 from .helpers import make_model
 
@@ -50,7 +50,7 @@ def test_processor_annotation_invariants(processor):
 
 
 def test_processor_utf8_conversion_fuzz(processor):
-    from slimt_tpu.text.annotation import Encoding
+    from slimt_jax.text.annotation import Encoding
 
     rng = random.Random(7)
     for _ in range(20):
@@ -91,7 +91,7 @@ def test_long_sentence_flash_attention():
     import jax.numpy as jnp
     import numpy as np
 
-    from slimt_tpu.models.decode import translate_batch
+    from slimt_jax.models.decode import translate_batch
 
     model = make_model()
     words = "hello world test quick brown " * 120  # ~600 tokens
@@ -145,7 +145,7 @@ def test_native_ingest_fuzz_matches_hf():
     compare ids + structure, and full annotations on ASCII lines)."""
     import os
 
-    from slimt_tpu import native as native_mod
+    from slimt_jax import native as native_mod
 
     if not native_mod.available():
         pytest.skip("native library unavailable")
@@ -157,14 +157,14 @@ def test_native_ingest_fuzz_matches_hf():
         pytest.skip("needs both backends")
     proc = TextProcessor("sentence", vocab)
     lines = [_random_text(rng, 100) for _ in range(60)]
-    os.environ["SLIMT_TPU_BATCH_BACKEND"] = "native"
+    os.environ["SLIMT_JAX_BATCH_BACKEND"] = "native"
     try:
         got = proc.process_batch(lines, 32)
     finally:
-        os.environ.pop("SLIMT_TPU_BATCH_BACKEND", None)
+        os.environ.pop("SLIMT_JAX_BATCH_BACKEND", None)
     # oracle: split + per-sentence single encode (same native backend)
     # + the Python wrap, mirroring the generic process_batch
-    from slimt_tpu.text.splitter import SentenceStream
+    from slimt_jax.text.splitter import SentenceStream
 
     step = 32 - 1
     for line, (source, segments) in zip(lines, got):

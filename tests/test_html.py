@@ -2,11 +2,11 @@
 
 import pytest
 
-from slimt_tpu.config import Config
-from slimt_tpu.html import HTML
-from slimt_tpu.html import scanner as xh
-from slimt_tpu.runtime.response import Options
-from slimt_tpu.runtime.service import Blocking
+from slimt_jax.config import Config
+from slimt_jax.html import HTML
+from slimt_jax.html import scanner as xh
+from slimt_jax.runtime.response import Options
+from slimt_jax.runtime.service import Blocking
 
 from .helpers import make_model
 
@@ -227,7 +227,7 @@ def test_attribute_entities_kept_raw(model):
 def test_surrogate_numeric_entity_is_kept_literal():
     """&#55296; (a lone surrogate) cannot be encoded to UTF-8 — keep
     the entity text instead of crashing."""
-    from slimt_tpu.html.html import HTML
+    from slimt_jax.html.html import HTML
 
     html = HTML("<p>a &#55296; b</p>")
     assert "&#55296;" in html.source
@@ -237,7 +237,7 @@ def test_length_changing_lowercase_in_special_tag():
     """Tag searches fold case WITHOUT changing string length ('İ'
     lowercases to two chars) — indices must stay aligned and scan must
     terminate."""
-    from slimt_tpu.html.scanner import scan
+    from slimt_jax.html.scanner import scan
 
     tokens = list(scan("İ<script>a</script>z"))
     kinds = [t[0] for t in tokens]

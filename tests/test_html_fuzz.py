@@ -17,11 +17,11 @@ import string
 
 import pytest
 
-from slimt_tpu.config import Config
-from slimt_tpu.html.html import HTML, IGNORED_TAGS, VOID_TAGS
-from slimt_tpu.html.scanner import BadHTML, ScanError, scan
-from slimt_tpu.runtime.response import Options
-from slimt_tpu.runtime.service import Blocking
+from slimt_jax.config import Config
+from slimt_jax.html.html import HTML, IGNORED_TAGS, VOID_TAGS
+from slimt_jax.html.scanner import BadHTML, ScanError, scan
+from slimt_jax.runtime.response import Options
+from slimt_jax.runtime.service import Blocking
 
 from .helpers import make_model
 

@@ -1,7 +1,7 @@
 """Compiled native client against a live HTTP server.
 
 The reference's JNI bindings (bindings/java/slimt.cpp) let a non-C++
-host call the engine; slimt-tpu's counterpart surfaces are the C ABI
+host call the engine; slimt-jax's counterpart surfaces are the C ABI
 (tests/test_capi.py) and the HTTP endpoint.  This test proves the
 cross-language HTTP story end-to-end with a real compiled foreign
 client (examples/http_client.cc, plain POSIX sockets), and — when a
@@ -15,8 +15,8 @@ import subprocess
 
 import pytest
 
-from slimt_tpu.config import Config
-from slimt_tpu.server import TranslationServer, serve
+from slimt_jax.config import Config
+from slimt_jax.server import TranslationServer, serve
 
 from .helpers import make_model
 

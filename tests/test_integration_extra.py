@@ -6,11 +6,11 @@ import threading
 import numpy as np
 import pytest
 
-from slimt_tpu.config import Config
-from slimt_tpu.runtime.response import Options
-from slimt_tpu.runtime.service import Async, Blocking
-from slimt_tpu.text import spm_proto
-from slimt_tpu.text.vocabulary import Vocabulary
+from slimt_jax.config import Config
+from slimt_jax.runtime.response import Options
+from slimt_jax.runtime.service import Async, Blocking
+from slimt_jax.text import spm_proto
+from slimt_jax.text.vocabulary import Vocabulary
 
 from .helpers import make_model
 

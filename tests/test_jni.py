@@ -60,7 +60,7 @@ def package_dir(tmp_path_factory):
 def _env():
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["SLIMT_TPU_PYTHONPATH"] = REPO
+    env["SLIMT_JAX_PYTHONPATH"] = REPO
     env.pop("XLA_FLAGS", None)  # plain single-device CPU is enough
     env.pop("SLIMT_JNI_FAKE_FAIL_FIELD", None)
     return env

@@ -5,17 +5,17 @@ import struct
 import numpy as np
 import pytest
 
-from slimt_tpu.config import ModelConfig
-from slimt_tpu.io import load_items, save_items
-from slimt_tpu.io.loader import load_weights, model_dims
-from slimt_tpu.io.marian import (
+from slimt_jax.config import ModelConfig
+from slimt_jax.io import load_items, save_items
+from slimt_jax.io.loader import load_weights, model_dims
+from slimt_jax.io.marian import (
     DATA_ALIGNMENT,
     TYPE_FLOAT32,
     TYPE_INTGEMM8,
     item_from_array,
     quantize_item,
 )
-from slimt_tpu.io.synthetic import synthetic_items, synthetic_model_bytes
+from slimt_jax.io.synthetic import synthetic_items, synthetic_model_bytes
 
 
 def test_round_trip_simple():

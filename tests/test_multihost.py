@@ -5,13 +5,13 @@ import pytest
 
 import jax
 
-from slimt_tpu.config import Config
-from slimt_tpu.parallel import multihost
-from slimt_tpu.parallel.sharding import make_mesh
-from slimt_tpu.runtime.service import Blocking
+from slimt_jax.config import Config
+from slimt_jax.parallel import multihost
+from slimt_jax.parallel.sharding import make_mesh
+from slimt_jax.runtime.service import Blocking
 
 from .helpers import TINY_TEST_CONFIG, make_package
-from slimt_tpu.models.model import Model
+from slimt_jax.models.model import Model
 
 
 @pytest.fixture(scope="module")
@@ -59,8 +59,8 @@ def test_initialize_single_process_noop():
 def test_scaling_report_harness(package):
     """The scaling-efficiency harness runs (CPU mesh: functional, not
     a perf statement)."""
-    from slimt_tpu.config import Config
-    from slimt_tpu.runtime.service import Blocking
+    from slimt_jax.config import Config
+    from slimt_jax.runtime.service import Blocking
 
     corpus = ["hello world"] * 4
 

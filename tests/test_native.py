@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from slimt_tpu import native
-from slimt_tpu.io.shortlist import hash_words as py_hash_words
-from slimt_tpu.text.synthetic_vocab import build_vocabulary
+from slimt_jax import native
+from slimt_jax.io.shortlist import hash_words as py_hash_words
+from slimt_jax.text.synthetic_vocab import build_vocabulary
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable"

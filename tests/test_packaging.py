@@ -4,7 +4,7 @@ pkg-config and cmake package consumption, and the pure-Python wheel.
 The reference installs libslimt + headers + slimt.pc + slimtConfig.cmake
 under SLIMT_PACKAGE=ON (slimt/CMakeLists.txt:120-175) and wheels the
 python binding via setup.py (packaging/PKGBUILD.python-slimt-git);
-these tests exercise the slimt_tpu analogs end to end against a staged
+these tests exercise the slimt_jax analogs end to end against a staged
 DESTDIR install.
 """
 
@@ -41,9 +41,9 @@ def test_install_tree(staged_install):
         "lib/libslimt_host.so",
         "lib/libslimt_jni.so",
         "include/slimt_capi.h",
-        "lib/pkgconfig/slimt_tpu.pc",
-        "lib/cmake/slimt_tpu/slimt_tpuConfig.cmake",
-        "lib/cmake/slimt_tpu/slimt_tpuConfigVersion.cmake",
+        "lib/pkgconfig/slimt_jax.pc",
+        "lib/cmake/slimt_jax/slimt_jaxConfig.cmake",
+        "lib/cmake/slimt_jax/slimt_jaxConfigVersion.cmake",
     ):
         assert os.path.exists(os.path.join(staged_install, rel)), rel
 
@@ -51,7 +51,7 @@ def test_install_tree(staged_install):
 @pytest.mark.skipif(shutil.which("pkg-config") is None, reason="no pkg-config")
 def test_pkg_config_compile_link(staged_install, tmp_path):
     """A third-party C embedder builds against the installed tree using
-    only `pkg-config slimt_tpu` — the workflow slimt.pc exists for."""
+    only `pkg-config slimt_jax` — the workflow slimt.pc exists for."""
     env = dict(os.environ)
     env["PKG_CONFIG_PATH"] = os.path.join(staged_install, "lib", "pkgconfig")
     # The staged prefix is /usr, which pkg-config elides as a system
@@ -60,12 +60,12 @@ def test_pkg_config_compile_link(staged_install, tmp_path):
     env["PKG_CONFIG_ALLOW_SYSTEM_LIBS"] = "1"
 
     version = subprocess.run(
-        ["pkg-config", "--modversion", "slimt_tpu"],
+        ["pkg-config", "--modversion", "slimt_jax"],
         env=env, check=True, capture_output=True, text=True,
     ).stdout.strip()
     assert version == "0.1.0"
     flags = subprocess.run(
-        ["pkg-config", "--cflags", "--libs", "slimt_tpu"],
+        ["pkg-config", "--cflags", "--libs", "slimt_jax"],
         env=env, check=True, capture_output=True, text=True,
     ).stdout.split()
     # The staged prefix is /usr inside DESTDIR; rewrite for the compile
@@ -88,14 +88,14 @@ def test_pkg_config_compile_link(staged_install, tmp_path):
 
 @pytest.mark.skipif(shutil.which("cmake") is None, reason="no cmake")
 def test_cmake_find_package(staged_install, tmp_path):
-    """find_package(slimt_tpu) resolves the imported targets — the
+    """find_package(slimt_jax) resolves the imported targets — the
     consumer contract of slimtConfig.cmake.in in the reference."""
     (tmp_path / "CMakeLists.txt").write_text(
         "cmake_minimum_required(VERSION 3.16)\n"
         "project(consumer C)\n"
-        "find_package(slimt_tpu 0.1 REQUIRED)\n"
+        "find_package(slimt_jax 0.1 REQUIRED)\n"
         "add_executable(embed embed.c)\n"
-        "target_link_libraries(embed PRIVATE slimt_tpu::capi)\n"
+        "target_link_libraries(embed PRIVATE slimt_jax::capi)\n"
     )
     (tmp_path / "embed.c").write_text(
         "#include <slimt_capi.h>\n"
@@ -120,7 +120,7 @@ def test_cmake_find_package(staged_install, tmp_path):
     (bad / "CMakeLists.txt").write_text(
         "cmake_minimum_required(VERSION 3.16)\n"
         "project(consumer NONE)\n"
-        "find_package(slimt_tpu 1.0 REQUIRED)\n"
+        "find_package(slimt_jax 1.0 REQUIRED)\n"
     )
     result = subprocess.run(
         ["cmake", "-S", str(bad), "-B", str(bad / "build"),
@@ -141,7 +141,7 @@ def test_wheel_builds_and_installs(tmp_path):
          "--no-deps", "-w", str(wheel_dir), REPO],
         check=True, capture_output=True, text=True,
     )
-    wheels = list(wheel_dir.glob("slimt_tpu-*.whl"))
+    wheels = list(wheel_dir.glob("slimt_jax-*.whl"))
     assert len(wheels) == 1
     target = tmp_path / "site"
     subprocess.run(
@@ -149,14 +149,14 @@ def test_wheel_builds_and_installs(tmp_path):
          "--target", str(target), str(wheels[0])],
         check=True, capture_output=True, text=True,
     )
-    assert (target / "slimt_tpu" / "cli.py").exists()
+    assert (target / "slimt_jax" / "cli.py").exists()
     # The wheel's package must import and expose the public API from
     # its own install dir (native/ is rebuilt or absent there — the
     # import path must not require it).
     probe = subprocess.run(
         [sys.executable, "-c",
-         "import slimt_tpu, slimt_tpu.config; "
-         "print(slimt_tpu.config.ModelConfig().kv_cache_dtype)"],
+         "import slimt_jax, slimt_jax.config; "
+         "print(slimt_jax.config.ModelConfig().kv_cache_dtype)"],
         env={**os.environ, "PYTHONPATH": str(target),
              "JAX_PLATFORMS": "cpu"},
         check=True, capture_output=True, text=True,

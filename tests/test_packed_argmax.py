@@ -13,7 +13,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slimt_tpu.models.transformer import packed_argmax_16, packed_argmax_bf16
+from slimt_jax.models.transformer import packed_argmax_16, packed_argmax_bf16
 
 DTYPES = [jnp.float16, jnp.bfloat16]
 
@@ -108,7 +108,7 @@ def test_inside_jit_and_vmap():
 
 # ---- packed_int: the integer-accumulator-domain argmax ----------------
 
-from slimt_tpu.models.transformer import (  # noqa: E402
+from slimt_jax.models.transformer import (  # noqa: E402
     packed_int_argmax,
     packed_int_params,
 )
@@ -152,8 +152,8 @@ def test_packed_int_key_budget():
 def test_output_argmax_packed_int_plumbing():
     """output_argmax(method='packed_int') equals the shifted-integer
     oracle computed from the same quantized operands."""
-    from slimt_tpu.ops import qmm
-    from slimt_tpu.models.transformer import output_argmax
+    from slimt_jax.ops import qmm
+    from slimt_jax.models.transformer import output_argmax
 
     rng = np.random.default_rng(3)
     e, v, b_sz = 64, 500, 5
@@ -180,11 +180,11 @@ def test_translate_batch_packed_int_runs():
     """argmax_method='packed_int' decodes through translate_batch on
     the declared int16 KV numerics (shape/validity sanity; agreement
     is quantified by the crosscheck serving sweep)."""
-    from slimt_tpu.config import ModelConfig
-    from slimt_tpu.io import load_items
-    from slimt_tpu.io.loader import load_weights, stack_layers
-    from slimt_tpu.io.synthetic import synthetic_model_bytes
-    from slimt_tpu.models.decode import translate_batch
+    from slimt_jax.config import ModelConfig
+    from slimt_jax.io import load_items
+    from slimt_jax.io.loader import load_weights, stack_layers
+    from slimt_jax.io.synthetic import synthetic_model_bytes
+    from slimt_jax.models.decode import translate_batch
 
     config = ModelConfig(encoder_layers=2, decoder_layers=2)
     items = load_items(

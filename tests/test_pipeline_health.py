@@ -6,13 +6,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slimt_tpu.config import ModelConfig
-from slimt_tpu.io import load_items
-from slimt_tpu.io.loader import load_weights, stack_layers
-from slimt_tpu.io.synthetic import synthetic_model_bytes
-from slimt_tpu.models.decode import translate_batch
-from slimt_tpu.parallel.pipeline import TwoStagePipeline
-from slimt_tpu.runtime.health import Watchdog, probe_devices
+from slimt_jax.config import ModelConfig
+from slimt_jax.io import load_items
+from slimt_jax.io.loader import load_weights, stack_layers
+from slimt_jax.io.synthetic import synthetic_model_bytes
+from slimt_jax.models.decode import translate_batch
+from slimt_jax.parallel.pipeline import TwoStagePipeline
+from slimt_jax.runtime.health import Watchdog, probe_devices
 
 CONFIG = ModelConfig(encoder_layers=2, decoder_layers=2, num_heads=4)
 VOCAB, EMB, FFN = 96, 32, 64

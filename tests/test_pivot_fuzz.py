@@ -12,12 +12,12 @@ import random
 
 import pytest
 
-from slimt_tpu.runtime.response import (
+from slimt_jax.runtime.response import (
     Response,
     remap_alignments,
     transfer_through_characters,
 )
-from slimt_tpu.text.annotation import Range
+from slimt_jax.text.annotation import Range
 
 
 def _random_tiling(rng, nbytes, zero_width_tail=False):

@@ -2,8 +2,8 @@
 
 import pytest
 
-from slimt_tpu.text.processor import TextProcessor
-from slimt_tpu.text.synthetic_vocab import build_vocabulary
+from slimt_jax.text.processor import TextProcessor
+from slimt_jax.text.synthetic_vocab import build_vocabulary
 
 
 @pytest.fixture(scope="module")
@@ -100,9 +100,9 @@ NATIVE_CORPUS = [
 def _generic_process_batch(proc, texts, wrap_length):
     """The pure-Python process_batch path (HF/py encode + Python wrap),
     bypassing the native ingest routing — oracle for parity."""
-    from slimt_tpu.text.annotation import AnnotatedText
-    from slimt_tpu.text.splitter import SentenceStream
-    from slimt_tpu.text.vocabulary import byte_prefix
+    from slimt_jax.text.annotation import AnnotatedText
+    from slimt_jax.text.splitter import SentenceStream
+    from slimt_jax.text.vocabulary import byte_prefix
 
     plans = []
     all_sentences = []
@@ -146,7 +146,7 @@ def _generic_process_batch(proc, texts, wrap_length):
 
 @pytest.fixture(scope="module")
 def native_processor():
-    from slimt_tpu import native as native_mod
+    from slimt_jax import native as native_mod
 
     if not native_mod.available():
         pytest.skip("native library unavailable")
@@ -179,14 +179,14 @@ def test_native_ingest_raw_consistent(native_processor):
     proc = native_processor
     vocab = proc.vocabulary
     nat = vocab._native
-    from slimt_tpu.text.splitter import SentenceStream
+    from slimt_jax.text.splitter import SentenceStream
 
     line_datas, sent_begin, sent_end, sent_counts = [], [], [], []
     for text in NATIVE_CORPUS:
         data = text.encode("utf-8")
         line_datas.append(data)
         count = 0
-        from slimt_tpu.text.vocabulary import byte_prefix
+        from slimt_jax.text.vocabulary import byte_prefix
 
         prefix = None if len(data) == len(text) else byte_prefix(text)
         for s, b, e in SentenceStream(text, proc.splitter, proc.mode):

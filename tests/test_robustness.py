@@ -5,13 +5,13 @@ validation fail-fast per SURVEY.md §5)."""
 import numpy as np
 import pytest
 
-from slimt_tpu.config import Config, ModelConfig
-from slimt_tpu.io import load_items, save_items
-from slimt_tpu.io.loader import MissingParameter, load_weights
-from slimt_tpu.io.shortlist import ShortlistGenerator, write_shortlist
-from slimt_tpu.io.synthetic import synthetic_model_bytes
-from slimt_tpu.models.model import Model, Package
-from slimt_tpu.runtime.service import Blocking
+from slimt_jax.config import Config, ModelConfig
+from slimt_jax.io import load_items, save_items
+from slimt_jax.io.loader import MissingParameter, load_weights
+from slimt_jax.io.shortlist import ShortlistGenerator, write_shortlist
+from slimt_jax.io.synthetic import synthetic_model_bytes
+from slimt_jax.models.model import Model, Package
+from slimt_jax.runtime.service import Blocking
 
 from .helpers import TINY_TEST_CONFIG, make_package
 

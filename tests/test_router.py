@@ -8,9 +8,9 @@ import urllib.request
 
 import pytest
 
-from slimt_tpu.config import Config
-from slimt_tpu.runtime.router import Router, serve as serve_router
-from slimt_tpu.server import TranslationServer, serve as serve_backend
+from slimt_jax.config import Config
+from slimt_jax.runtime.router import Router, serve as serve_router
+from slimt_jax.server import TranslationServer, serve as serve_backend
 
 from .helpers import make_model
 

@@ -4,15 +4,15 @@ import threading
 
 import pytest
 
-from slimt_tpu.runtime.batcher import (
+from slimt_jax.runtime.batcher import (
     AggregateBatcher,
     Batcher,
     SegmentRef,
     Threadsafe,
 )
-from slimt_tpu.runtime.cache import AtomicCache, make_cache
-from slimt_tpu.runtime.request import Hypothesis, Request, cache_key
-from slimt_tpu.text.annotation import AnnotatedText
+from slimt_jax.runtime.cache import AtomicCache, make_cache
+from slimt_jax.runtime.request import Hypothesis, Request, cache_key
+from slimt_jax.text.annotation import AnnotatedText
 
 from .helpers import make_model
 
@@ -257,7 +257,7 @@ def test_batching_window_breaks_early_when_full():
     batch is already queued."""
     import time
 
-    from slimt_tpu.runtime.batcher import Batcher, Threadsafe
+    from slimt_jax.runtime.batcher import Batcher, Threadsafe
 
     inner = Batcher(max_words=16, wrap_length=4)
     ts = Threadsafe(inner, batch_latency=5.0)  # would be 5s of dead time
@@ -275,7 +275,7 @@ def test_batching_window_no_spurious_poison():
     it keeps waiting until shutdown."""
     import threading
 
-    from slimt_tpu.runtime.batcher import Batcher, Threadsafe
+    from slimt_jax.runtime.batcher import Batcher, Threadsafe
 
     inner = Batcher(max_words=64, wrap_length=4)
     ts = Threadsafe(inner, batch_latency=0.02)

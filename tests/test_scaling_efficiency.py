@@ -36,12 +36,12 @@ sys.path.insert(
     0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts")
 )
 
-from slimt_tpu.config import ModelConfig
-from slimt_tpu.io import load_items
-from slimt_tpu.io.loader import load_weights
-from slimt_tpu.io.synthetic import synthetic_model_bytes
-from slimt_tpu.models.decode import translate_batch
-from slimt_tpu.parallel import sharding as shd
+from slimt_jax.config import ModelConfig
+from slimt_jax.io import load_items
+from slimt_jax.io.loader import load_weights
+from slimt_jax.io.synthetic import synthetic_model_bytes
+from slimt_jax.models.decode import translate_batch
+from slimt_jax.parallel import sharding as shd
 
 MAX_ROUNDS = 3
 BATCH, SEQ, STEPS = 64, 24, 8

@@ -5,8 +5,8 @@ import urllib.request
 
 import pytest
 
-from slimt_tpu.config import Config
-from slimt_tpu.server import TranslationServer, serve
+from slimt_jax.config import Config
+from slimt_jax.server import TranslationServer, serve
 
 from .helpers import make_model
 
@@ -132,7 +132,7 @@ def bulk_endpoint():
     """Server with a tiny bulk_threshold so batch tests hit the bulk
     lane (and one with a huge threshold pinning the streaming lane,
     for differential comparison)."""
-    from slimt_tpu.server import serve as serve_fn
+    from slimt_jax.server import serve as serve_fn
 
     bulk = TranslationServer(Config(workers=1, cache_size=0),
                              bulk_threshold=4)
@@ -228,7 +228,7 @@ def test_job_submit_poll_fetch(endpoint):
 def test_job_progress_shape():
     """A zero-worker service never completes: the poll must keep
     reporting the Handle::info progress shape."""
-    from slimt_tpu.server import TranslationServer, serve as serve_fn
+    from slimt_jax.server import TranslationServer, serve as serve_fn
 
     server = TranslationServer(Config(workers=0, cache_size=0))
     server.add_model("en-de", make_model(seed=0))
@@ -332,7 +332,7 @@ def test_bulk_timeout_maps_to_504(bulk_endpoint):
 
 def test_job_table_ttl_eviction():
     """A full job table admits new jobs once old ones expire."""
-    from slimt_tpu.server import TranslationServer
+    from slimt_jax.server import TranslationServer
 
     server = TranslationServer(Config(workers=0, cache_size=0))
     server.add_model("en-de", make_model(seed=0))

@@ -7,12 +7,12 @@ pivot mechanics rather than translation quality.
 
 import pytest
 
-from slimt_tpu.config import Config
-from slimt_tpu.runtime.response import Options
-from slimt_tpu.runtime.service import Async, Blocking
+from slimt_jax.config import Config
+from slimt_jax.runtime.response import Options
+from slimt_jax.runtime.service import Async, Blocking
 
 from .helpers import TINY_TEST_CONFIG, make_model, make_package
-from slimt_tpu.models.model import Model
+from slimt_jax.models.model import Model
 
 
 @pytest.fixture(scope="module")
@@ -233,7 +233,7 @@ def test_raw_completion_differential(model):
     must produce byte-identical Responses to the per-row path on both
     the Blocking exhaust loop and the Async workers, including cached
     reuse across batches."""
-    from slimt_tpu.runtime import service as service_mod
+    from slimt_jax.runtime import service as service_mod
 
     corpus = [
         "hello world",

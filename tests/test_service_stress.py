@@ -14,9 +14,9 @@ outputs legitimately batch-dependent.
 import random
 import threading
 
-from slimt_tpu.config import Config
-from slimt_tpu.runtime.response import Options
-from slimt_tpu.runtime.service import Async, Blocking
+from slimt_jax.config import Config
+from slimt_jax.runtime.response import Options
+from slimt_jax.runtime.service import Async, Blocking
 
 from .helpers import make_model
 

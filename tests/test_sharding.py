@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from slimt_tpu.config import ModelConfig
-from slimt_tpu.io import load_items
-from slimt_tpu.io.loader import load_weights
-from slimt_tpu.io.synthetic import synthetic_model_bytes
-from slimt_tpu.models.decode import translate_batch
-from slimt_tpu.parallel import sharding as shd
+from slimt_jax.config import ModelConfig
+from slimt_jax.io import load_items
+from slimt_jax.io.loader import load_weights
+from slimt_jax.io.synthetic import synthetic_model_bytes
+from slimt_jax.models.decode import translate_batch
+from slimt_jax.parallel import sharding as shd
 
 CONFIG = ModelConfig(encoder_layers=2, decoder_layers=2, num_heads=4)
 VOCAB, EMB, FFN = 128, 32, 64

@@ -2,7 +2,7 @@
 
 import pytest
 
-from slimt_tpu.text.splitter import (
+from slimt_jax.text.splitter import (
     SentenceStream,
     SplitMode,
     Splitter,

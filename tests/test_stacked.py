@@ -5,11 +5,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from slimt_tpu.config import ModelConfig
-from slimt_tpu.io import load_items
-from slimt_tpu.io.loader import load_weights, stack_layers
-from slimt_tpu.io.synthetic import synthetic_model_bytes
-from slimt_tpu.models import decode as dec
+from slimt_jax.config import ModelConfig
+from slimt_jax.io import load_items
+from slimt_jax.io.loader import load_weights, stack_layers
+from slimt_jax.io.synthetic import synthetic_model_bytes
+from slimt_jax.models import decode as dec
 
 CONFIG = ModelConfig(encoder_layers=3, decoder_layers=2, num_heads=4)
 VOCAB, EMB, FFN = 96, 32, 64
@@ -98,7 +98,7 @@ def test_kv_dtype_bfloat16_decodes(params):
 )
 def test_reduced_kv_agrees_with_f32(params, kv_dtype, floor):
     """The joined-layout reduced-precision KV cache (fp16/bf16/int8
-    with selector-matrix MXU attention) decodes nearly the same tokens
+    with selector-matrix GEMM attention) decodes nearly the same tokens
     as the exact f32 split-layout path — both unrolled and stacked,
     with and without a shortlist. Random-weight models have near-tied
     logits (worst case for reduced precision), so assert a high
@@ -168,7 +168,7 @@ def test_packed_argmax_decode_divergence_only_on_ties(
     crosscheck/serving_agreement.json)."""
     import math
 
-    from slimt_tpu.models import transformer as tfm
+    from slimt_jax.models import transformer as tfm
 
     indices, mask = _batch(seed=9)
     shortlist = np.arange(0, VOCAB, 3, dtype=np.int32)
@@ -261,7 +261,7 @@ def test_packed_int_decode_divergence_bounded_by_quantum(params):
     reference binary in crosscheck/serving_agreement.json.)"""
     import math
 
-    from slimt_tpu.models import transformer as tfm
+    from slimt_jax.models import transformer as tfm
 
     indices, mask = _batch(seed=21)
     shortlist = np.arange(0, VOCAB, 3, dtype=np.int32)
@@ -403,8 +403,8 @@ def test_decoder_position_zero_false(params):
 
 @pytest.mark.parametrize("unroll", [2, 3])
 def test_loop_unroll_bit_exact(params, unroll):
-    """greedy_decode's loop_unroll (N steps per while_loop iteration;
-    measured slower on current TPUs, kept for future hardware) must be
+    """greedy_decode's loop_unroll (N steps per while_loop iteration)
+    must be
     BIT-exact vs unroll=1 — including odd max_steps (buffer-padding
     tails) and a traced steps_cap that is not a multiple of the
     unroll factor."""

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from slimt_tpu.text import spm_proto
-from slimt_tpu.text.annotation import AnnotatedText, Encoding, Range
-from slimt_tpu.text.synthetic_vocab import build_spm_model, build_vocabulary
-from slimt_tpu.text.vocabulary import SPACE, Vocabulary
+from slimt_jax.text import spm_proto
+from slimt_jax.text.annotation import AnnotatedText, Encoding, Range
+from slimt_jax.text.synthetic_vocab import build_spm_model, build_vocabulary
+from slimt_jax.text.vocabulary import SPACE, Vocabulary
 
 
 # --- Annotation ------------------------------------------------------
@@ -165,7 +165,7 @@ def test_py_and_hf_backends_agree():
 
 
 def test_append_sentence_raw_matches_append_sentence():
-    from slimt_tpu.text.annotation import AnnotatedText
+    from slimt_jax.text.annotation import AnnotatedText
 
     cases = [
         ("", ["hello", " world"]),

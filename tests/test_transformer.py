@@ -5,12 +5,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from slimt_tpu.config import ModelConfig
-from slimt_tpu.io import load_items
-from slimt_tpu.io.loader import load_weights, model_dims
-from slimt_tpu.io.synthetic import synthetic_model_bytes
-from slimt_tpu.models import decode as dec
-from slimt_tpu.models import transformer as tfm
+from slimt_jax.config import ModelConfig
+from slimt_jax.io import load_items
+from slimt_jax.io.loader import load_weights, model_dims
+from slimt_jax.io.synthetic import synthetic_model_bytes
+from slimt_jax.models import decode as dec
+from slimt_jax.models import transformer as tfm
 
 from . import reference_impl as ref
 
